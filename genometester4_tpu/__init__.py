@@ -1,12 +1,11 @@
-"""genometester4_tpu — a TPU-native k-mer engine.
+"""genometester4_tpu — a JAX k-mer engine with a host-native twin.
 
 A ground-up re-design of the capabilities of bioinfo-ut/GenomeTester4
-(reference: /root/reference, v4.2.16) for TPU hardware:
+(v4.2.16) for JAX/XLA on a GPU, with a host-native C engine that every
+tool uses when JAX's backend is the CPU:
 
-* k-mers live as ``(hi, lo)`` uint32 pairs on device (TPU has no native
-  64-bit integer datapath; XLA emulates u64 as u32 pairs, so we make the
-  pair representation explicit and sort lexicographically with
-  ``jax.lax.sort(..., num_keys=2)``).
+* k-mers live as ``(hi, lo)`` uint32 pairs on device (no 64-bit mode
+  needed; sorted lexicographically with ``jax.lax.sort(..., num_keys=2)``).
 * counting / merging / set operations are XLA programs over sorted arrays
   (sort + segmented reduction) instead of the reference's pthread
   table-merge pipeline (reference: src/glistmaker.c, src/set-operations.c).
@@ -30,11 +29,8 @@ cli       argv-compatible command line entry points
 
 __version__ = "0.1.0"
 
-# Lazy re-exports (PEP 562): list_format drags numpy (~220 ms), which
-# would defeat the numpy-free bin/ stat fast paths that answer in ~20 ms
-# (BASELINE.md interpreter-floor rows; round-3 regression find — the
-# eager import here had pushed glistquery --distribution startup to
-# 0.25 s).
+# Lazy re-exports (PEP 562): list_format drags numpy (~0.2 s of
+# start-up), which would defeat the numpy-free bin/ stat fast paths.
 _LAZY = {"ListHeader", "read_list", "write_list"}
 
 

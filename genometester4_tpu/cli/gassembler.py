@@ -701,15 +701,10 @@ def main(argv=None) -> int:
         if num_threads > 1 and len(regions) > 1 and not p.print_reads:
             _parallel_assemble(asm, oq, regions, _shell, num_threads)
         else:
-            for i, region in enumerate(regions):
+            for region in regions:
                 cb = _shell(region)
                 oq.start_block(cb)
                 oq.flush()
-                # cross-region device SW batching: fill the pending
-                # window's SW matrices in one lane-batched launch (no-op
-                # on host-SW configs / under -D; byte-order preserved —
-                # pipelines.gassemble.Assembler.prefetch_device_sw)
-                asm.prefetch_device_sw(regions, i)
                 asm.assemble(region, cb)
                 oq.finish_block(cb)
         oq.flush()
@@ -740,10 +735,6 @@ _PAR_STATE: dict = {}
 
 
 def _parallel_worker(task):
-    import os
-    # forked workers must not touch the accelerator (fork + live JAX
-    # backend threads deadlock): host SW path only
-    os.environ["GT4_TPU_DEVICE_SW"] = "0"
     idx, region, haploid, skip_to, cons = task
     from genometester4_tpu.models.fastgt_native import rand_skip
     st = _PAR_STATE

@@ -536,8 +536,6 @@ def _print_mm_debug(files, n_words_of):
 def main(argv=None) -> int:
     import os
 
-    from genometester4_tpu.utils.backend import output_heavy_compute
-
     # GT4_DIST_*: join the process group BEFORE anything initializes the
     # XLA backend; set ops then run SPMD over the global mesh and only
     # process 0 writes files / prints counts (pipelines/listcompare.py).
@@ -552,8 +550,7 @@ def main(argv=None) -> int:
                 sys.stdout = open(os.devnull, "w")
 
     try:
-        with output_heavy_compute():
-            return _main_impl(argv)
+        return _main_impl(argv)
     except _HelpExit as e:
         sys.stdout.write(HELP)
         return e.code

@@ -200,11 +200,9 @@ def _main_impl(argv=None) -> int:
 def main(argv=None) -> int:
     import os
 
-    from genometester4_tpu.utils.backend import output_heavy_compute
-
     # GT4_DIST_*: join the process group BEFORE anything can initialize
     # the XLA backend (jax.distributed.initialize requires it); the
-    # group's mesh then overrides the local placement cost model
+    # group's mesh then overrides the local placement rule
     # (parallel/multihost.py). Env-gated inline: importing multihost
     # just to check the variables costs the numpy import (~0.3 s) on
     # every single-host run.
@@ -213,8 +211,7 @@ def main(argv=None) -> int:
         from genometester4_tpu.parallel.multihost import init_from_env
         init_from_env()
 
-    with output_heavy_compute():
-        return _main_impl(argv)
+    return _main_impl(argv)
 
 
 if __name__ == "__main__":

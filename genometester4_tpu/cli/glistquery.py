@@ -332,22 +332,19 @@ def _main_impl(argv=None) -> int:
 
 
 def main(argv=None) -> int:
-    from genometester4_tpu.utils.backend import output_heavy_compute
-    
-    with output_heavy_compute():
-        try:
-            return _main_impl(argv)
-        except Exception as e:
-            # lazy record loads can hit the corrupt-file path after
-            # construction; the reference segfaults on such files
-            # (12-byte record macros walk unmapped garbage,
-            # src/word-map.h:110), so any clean exit is acceptable —
-            # match the corrupted-line chrome
-            from genometester4_tpu.formats.list_format import ListFileError
-            if not isinstance(e, ListFileError):
-                raise
-            sys.stderr.write(f"Error: {e.args[0]} is invalid or corrupted\n")
-            return 1
+    try:
+        return _main_impl(argv)
+    except Exception as e:
+        # lazy record loads can hit the corrupt-file path after
+        # construction; the reference segfaults on such files
+        # (12-byte record macros walk unmapped garbage,
+        # src/word-map.h:110), so any clean exit is acceptable —
+        # match the corrupted-line chrome
+        from genometester4_tpu.formats.list_format import ListFileError
+        if not isinstance(e, ListFileError):
+            raise
+        sys.stderr.write(f"Error: {e.args[0]} is invalid or corrupted\n")
+        return 1
 
 
 if __name__ == "__main__":

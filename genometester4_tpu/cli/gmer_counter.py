@@ -356,8 +356,6 @@ def _main_impl(argv=None) -> int:
 def main(argv=None) -> int:
     import os
     import sys as _sys
-    from genometester4_tpu.utils.backend import output_heavy_compute
-    import contextlib
     args = list(_sys.argv[1:] if argv is None else argv)
     # GT4_DIST_*: join the process group BEFORE anything initializes the
     # XLA backend; counting then shards chunks over the global mesh
@@ -370,12 +368,7 @@ def main(argv=None) -> int:
             from genometester4_tpu.utils.lazyjax import ensure_jax
             if ensure_jax().process_index() != 0:
                 _sys.stdout = open(os.devnull, "w")
-    # count mode reads back a DB-sized table (device-friendly); index
-    # mode pulls per-hit arrays (output-heavy)
-    ctx = (output_heavy_compute() if "--compile_index" in args
-           else contextlib.nullcontext())
-    with ctx:
-        return _main_impl(args)
+    return _main_impl(args)
 
 
 if __name__ == "__main__":

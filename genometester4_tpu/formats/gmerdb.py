@@ -9,11 +9,11 @@ trie mapping canonical k-mer -> 32-bit code (reference:
 src/database.c:94-260, src/database.h:13-46).  The code packs
 ``dir | (node+1) << kmer_bits | kmer`` (src/database.c:217-218).
 
-TPU-native redesign: the trie (pointer-chasing, cache-miss bound) is
+Array redesign: the trie (pointer-chasing, cache-miss bound) is
 replaced by a **sorted canonical k-mer array + parallel code array**; DB
 lookup becomes a batched branchless binary search on device
 (ops.lookup.batched_lookup_pair), the same primitive glistquery uses.
-No pointers, no serialization-order dependence, HBM-resident.
+No pointers, no serialization-order dependence, device-resident.
 
 Bit-exact parity notes (verified against the reference sources):
 

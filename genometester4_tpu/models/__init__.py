@@ -2,6 +2,7 @@
 
 ``fastgt_native``: host-exact C kernels (bit-for-bit gmer_caller parity
 — glibc rand stream, float/double mixed precision, libm transcendentals).
-``genotype``: jnp implementation of the same 15-genotype posterior for
-TPU-scale batch genotyping.
+``genotype``: float32 jnp implementation of the same 15-genotype
+posterior for device batch genotyping (reached only through
+``GT4_TPU_CALLER_IMPL=device``).
 """

@@ -11,8 +11,9 @@ Semantics match reference src/sequence.c:43-86:
 
 Device representation
 ---------------------
-TPUs have no native 64-bit integer datapath, so on device a k-mer is an
-``(hi, lo)`` pair of uint32 (hi = bits 63..32). All device functions here
+On device a k-mer is an ``(hi, lo)`` pair of uint32 (hi = bits 63..32),
+so the device path runs without JAX's 64-bit mode (ROADMAP 1.4 and 3.6
+weigh a single u64 key on the GPU). All device functions here
 are pure jnp element-wise ops — they fuse into the surrounding extraction
 / sort pipeline. Host-side helpers use numpy uint64.
 """
@@ -118,7 +119,7 @@ def join_u64(hi, lo) -> np.ndarray:
 
 # ---------------------------------------------------------------------------
 # Device (jnp uint32-pair) kernels. k is static; these trace into a handful
-# of VPU ops and fuse with neighbours.
+# of elementwise ops and fuse with neighbours.
 # ---------------------------------------------------------------------------
 
 def _rev2bit_u32(x):

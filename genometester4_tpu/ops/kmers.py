@@ -19,18 +19,6 @@ from genometester4_tpu.utils.lazyjax import jax, jnp, jit
 from genometester4_tpu.ops.encode import canonical_pair
 
 
-def extract_kmers_best(codes, k: int, canonical: bool = True):
-    """Backend-best window extraction: the Pallas one-pass kernel on
-    TPU (ops.extract_pallas; returns len(codes) outputs with the
-    trailing k-1 slots invalid), the XLA doubling build elsewhere.
-    Callers must consume windows through the valid mask."""
-    n = codes.shape[0]
-    if jax.default_backend() == "tpu" and n % 128 == 0:
-        from genometester4_tpu.ops.extract_pallas import make_extract_pallas
-        return make_extract_pallas(int(n), k, canonical)(codes)
-    return extract_kmers(codes, k, canonical=canonical)
-
-
 @jit(static_argnames=("k", "canonical"))
 def extract_kmers(codes, k: int, canonical: bool = True):
     """Extract all k-windows from a code chunk.
@@ -56,8 +44,8 @@ def extract_kmers(codes, k: int, canonical: bool = True):
     # Logarithmic doubling instead of k shifted slices: W[m][i] packs the
     # m bases starting at i (m a power of two, 2m bits, fits u32 for
     # m <= 16); bad[m][i] flags any invalid base among them. k shifted
-    # full-array passes become ~log2(k) + popcount(k) passes — the window
-    # build drops from ~68 ms to ~20 ms at 51M windows on a v5e.
+    # full-array passes become ~log2(k) + popcount(k) elementwise passes,
+    # which XLA fuses into a few memory-bound kernels.
     W = {1: c}
     bad = {1: invalid}
     m = 1

@@ -1,4 +1,4 @@
-"""Batched dictionary lookup over sorted k-mer arrays — the TPU dict.
+"""Batched dictionary lookup over sorted k-mer arrays — the device dict.
 
 Replaces the reference's per-word binary search into the mmap'd list
 (src/word-map.c:134-163) and its pointer-chasing trie (src/trie.c) with

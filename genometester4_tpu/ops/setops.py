@@ -4,14 +4,15 @@ The reference walks two (or N) sorted lists with a cursor zipper
 (src/glistcompare.c:843-905, :500-717) deciding per word via
 ``include_in_union/intersection/complement`` (src/glistcompare.c:433-489).
 
-TPU formulation: concatenate the (already sorted, already unique) lists
+Device formulation: concatenate the (already sorted, already unique) lists
 with a source tag, sort by word, and reduce each equal-word run into an
 aligned table of per-source frequencies. All four set outputs (union /
 intersection / diff1 / diff2) are then element-wise masks + compactions
 over that aligned table — one sort feeds every requested output, like
 the reference's single zipper pass feeding four files at once.
 
-Like ops.sortcount, everything is scatter-free (TPU scatters serialize):
+Like ops.sortcount, everything is scatter-free (a design rule from the
+accelerator this was first written for, not yet re-measured on the GPU):
 per-run reductions are differences of prefix sums gathered at run heads,
 min/max reductions exploit a secondary sort key (within an equal-word
 run, counts are sorted ascending, so min = first and max = last entry),

@@ -3,12 +3,15 @@
 The reference counts k-mers by radix-sorting per-thread tables
 (src/utils.c:101-198) and run-length scanning (src/word-table.c:233-258),
 then k-way merging sorted tables/files (src/glistmaker.c:1081-1154,
-src/set-operations.c:40-129). On TPU both collapse into one primitive:
+src/set-operations.c:40-129). On the device both collapse into one
+primitive:
 
     sort by (hi, lo) → mark run heads → per-run weight sums
 
-TPU-specific design rule: NO SCATTERS. TPU scatter ops serialize; sorts
-and gathers are fast (XLA's TPU sort runs near memory bandwidth). So:
+Design rule carried from the accelerator this was first written for:
+NO SCATTERS (its scatters serialized; sorts and gathers were fast). It
+is not yet re-measured on the GPU, where the two-key comparator sort
+is ~94% of glistmaker's chunk step (PERF.md; ROADMAP 1.4). So:
 
 * run compaction is done with a second sort keyed on (is_not_head,
   position) instead of a scatter;
@@ -37,8 +40,8 @@ def sort_compact(mask, *arrays):
     Tail slots hold the (arbitrary) non-kept entries.
 
     The (keep, position) pair packs into ONE uint32 key (positions are
-    int32 so bit 31 is free) — a single-key sort is measurably faster on
-    TPU than a two-key sort."""
+    int32 so bit 31 is free): a single-key sort instead of a two-key
+    one."""
     n = mask.shape[0]
     key = jnp.where(mask, jnp.uint32(0), jnp.uint32(1 << 31)) \
         | _iota32(n).astype(jnp.uint32)
@@ -59,7 +62,7 @@ def count_unique(hi, lo, weights, valid, hi_bits: int = 32,
     valid : bool[N] — entries to include
     hi_bits : static — number of significant bits in ``hi`` (2k-32 for
         k-mers of length k). When <= 30 the invalid flag packs into the
-        hi key, dropping the TPU sort from 3 keys to 2 (and k <= 16
+        hi key, dropping the sort from 3 keys to 2 (and k <= 16
         collapses hi entirely).
     unit_weights : static — promise that every valid weight is 1 (raw
         k-mer extraction). Counts are then head-position differences:
@@ -68,9 +71,8 @@ def count_unique(hi, lo, weights, valid, hi_bits: int = 32,
     compact : static — when True, unique words are moved to the leading
         ``n_unique`` slots (costs a second full-length sort). When False
         both that sort AND all scans vanish: runs are described by pure
-        element-wise head/tail marks (~2.3x faster end-to-end on TPU at
-        51M elements); use it whenever the consumer can take a marked
-        stream (e.g. host-side .list writing).
+        element-wise head/tail marks; use it whenever the consumer can
+        take a marked stream (e.g. host-side .list writing).
 
     Returns
     -------
@@ -149,8 +151,8 @@ def count_unique(hi, lo, weights, valid, hi_bits: int = 32,
     e_head = jnp.where(head, excl, total)
 
     # single-key compaction with payloads: (head-flag, position) pack into
-    # one uint32 key. Payload sorting beats gather-by-permutation on TPU
-    # by ~6x — large random gathers are slow, sorted data movement is fast.
+    # one uint32 key; the payloads ride the sort instead of a gather by
+    # permutation.
     n_unique, uhi, ulo, ce = sort_compact(head, shi, slo, e_head)
     ce_next = jnp.concatenate([ce[1:], total[None]])
     counts = (ce_next - ce).astype(jnp.uint32)

@@ -2,19 +2,21 @@
 
 The reference is strictly single-node (SURVEY.md §2c: pthreads only, no
 MPI/NCCL/sockets). Its scale-out story ends at one machine; this module
-is the DCN half of the TPU replacement design (SURVEY.md §5 "Distributed
-communication backend", §2g): multiple processes — one per TPU host in a
-pod, or N CPU processes in tests — form one global ``("dp", "kp")`` mesh
-via ``jax.distributed`` and run the *same* SPMD counting program as the
+is the cross-host half of the mesh design (SURVEY.md §5 "Distributed
+communication backend", §2g): multiple processes — one per GPU host, or
+N CPU processes in tests — form one global ``("dp", "kp")`` mesh via
+``jax.distributed`` and run the *same* SPMD counting program as the
 single-process mesh path (parallel/sharding.py), unchanged:
 
   dp  — the PROCESS axis. Row i of the mesh is exactly host i's local
         devices, so the one cross-row collective (the all_gather that
-        merges per-shard partial counts) is the only traffic that rides
-        DCN — and it moves already-deduplicated (word, count) buckets,
-        orders of magnitude smaller than the raw window stream.
-  kp  — each host's local chips. The all_to_all prefix exchange (the
-        bandwidth-heavy collective) stays inside a host's ICI domain.
+        merges per-shard partial counts) is the only traffic that
+        crosses the host network — and it moves already-deduplicated
+        (word, count) buckets, orders of magnitude smaller than the raw
+        window stream.
+  kp  — each host's local cards. The all_to_all prefix exchange (the
+        bandwidth-heavy collective) stays on the host's all-to-all
+        NVLink.
 
 Word-space sharding is by MOST significant bits (sharding._owner_shard),
 so shard-major concatenation of per-kp results is globally sorted and
@@ -23,7 +25,7 @@ single-process runs at every (process count × local device count) shape
 — the multi-host generalization of the invariant the reference gets
 from its tmp-file k-way merge (src/set-operations.c:40-129).
 
-Ingestion: every process parses the shared input (hosts in a pod see
+Ingestion: every process parses the shared input (hosts of a cluster see
 the same filesystem) but only UPLOADS its own row's chunk share, so
 device work and collective traffic scale with 1/n_processes. Host-side
 parse is duplicated; it is a few percent of wall time on the measured
@@ -31,7 +33,7 @@ pipelines and keeping it replicated makes step counts and overflow
 retries trivially agree across processes (every process sees identical
 control flow — a requirement for collectives).
 
-Activation: environment-driven, mirroring how pods launch one process
+Activation: environment-driven, mirroring how clusters launch one process
 per host::
 
     GT4_DIST_COORD=host0:9999 GT4_DIST_NPROCS=4 GT4_DIST_PROC_ID=i \
@@ -43,7 +45,7 @@ processes participate in every collective but accumulate nothing;
 process 0 merges and writes; a cross-process barrier makes every
 process return only after the file is published. tests/test_multihost.py
 drives real multi-process runs (Gloo collectives over loopback stand in
-for DCN) and byte-compares against the reference binary.
+for the host network) and byte-compares against the reference binary.
 """
 
 from __future__ import annotations
@@ -101,8 +103,8 @@ def make_global_mesh():
     """("dp", "kp") mesh with one dp row per process.
 
     Devices are ordered (process_index, id) so row i is host i's local
-    chips: the kp all_to_all stays on ICI, the dp all_gather is the
-    only DCN collective (module docstring)."""
+    chips: the kp all_to_all stays inside a host, the dp all_gather is
+    the only cross-host collective (module docstring)."""
     from genometester4_tpu.parallel.sharding import Mesh
 
     nproc = jax.process_count()

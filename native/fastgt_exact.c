@@ -9,8 +9,8 @@
  * reductions), so the exact path lives here as a host-native library:
  * Python orchestrates I/O and formatting, this library does the numeric
  * inner loops (vectorized over markers), and a separate jnp
- * implementation (genometester4_tpu/models/genotype.py) provides the
- * TPU-accelerated path for throughput work.
+ * implementation (genometester4_tpu/models/genotype.py) is a float32
+ * device twin for throughput work.
  *
  * Everything here is a fresh implementation written against the
  * reference's observed semantics; expression groupings and precision

@@ -84,7 +84,7 @@ for trial in range(14):
                            capture_output=True, cwd=FIX, timeout=300)
     except subprocess.TimeoutExpired as e:
         # report and keep sweeping: this VM's IO stalls (identical
-        # 384 MB writes measure 0.26-11.5 s, see BASELINE.md) can park
+        # 384 MB writes measured 0.26-11.5 s) can park
         # a whole process for minutes; a reproducible hang will show
         # up again on the rerun
         print("TIMEOUT (rerun to confirm)", mode, e.cmd)

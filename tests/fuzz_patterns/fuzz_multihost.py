@@ -1,4 +1,4 @@
-"""Fuzz the multi-host (DCN) paths: random process counts x local
+"""Fuzz the multi-host paths: random process counts x local
 device counts x spill budgets x input kinds, byte-compared against the
 reference binary (round-5 VERDICT #8 — test_multihost.py covers two
 fixed shapes; this draws the rest of the space).
@@ -12,7 +12,7 @@ the collate role of src/glistmaker.c:788-835), and a tool surface:
 * glistcompare pair/multi — sharded set ops over the global mesh
 * gmer_counter — global-mesh DB counting, process-0 stdout
 
-Real jax.distributed groups (Gloo over loopback stands in for DCN),
+Real jax.distributed groups (Gloo over loopback stands in for the host network),
 production CLI entry points via tests/_mh_driver.py.
 
 Run:  python tests/fuzz_patterns/fuzz_multihost.py SEED [N_TRIALS]

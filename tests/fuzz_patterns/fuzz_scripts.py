@@ -154,9 +154,9 @@ def trial_make_union(t):
     n = rnd.randrange(2, 6)
     with tempfile.TemporaryDirectory() as d:
         ref_dir = os.path.join(d, "ref")
-        tpu_dir = os.path.join(d, "tpu")
+        ours_dir = os.path.join(d, "ours")
         os.mkdir(ref_dir)
-        os.mkdir(tpu_dir)
+        os.mkdir(ours_dir)
         names = []
         for i in range(n):
             seq = "".join(rnd.choice(B) for _ in range(
@@ -170,7 +170,7 @@ def trial_make_union(t):
             if r.returncode != 0:
                 return None  # reference failed to build input: skip
             shutil.copy(os.path.join(ref_dir, "l%d_10.list" % i),
-                        os.path.join(tpu_dir, "l%d_10.list" % i))
+                        os.path.join(ours_dir, "l%d_10.list" % i))
             names.append("l%d_10.list" % i)
         shutil.copy(os.path.join(REF_BIN, "glistcompare"),
                     os.path.join(ref_dir, "glistcompare"))
@@ -180,7 +180,7 @@ def trial_make_union(t):
                        cwd=ref_dir, capture_output=True)
         fn = main_union if which == "union" else main_intersection
         old = os.getcwd()
-        os.chdir(tpu_dir)
+        os.chdir(ours_dir)
         try:
             rc, _ = run_cli(fn, names, capture="stderr")
         finally:
@@ -190,12 +190,12 @@ def trial_make_union(t):
         out_name = ("union_10_union.list" if which == "union"
                     else "intrsec_10_intrsec.list")
         refp = os.path.join(ref_dir, out_name)
-        tpup = os.path.join(tpu_dir, out_name)
+        oursp = os.path.join(ours_dir, out_name)
         if not os.path.exists(refp):
             return None  # perl driver produced nothing: skip
-        if not os.path.exists(tpup):
+        if not os.path.exists(oursp):
             return "make_%s missing output (trial %d)" % (which, t)
-        if open(refp, "rb").read() != open(tpup, "rb").read():
+        if open(refp, "rb").read() != open(oursp, "rb").read():
             return "make_%s final list diverges (trial %d, n=%d)" % (
                 which, t, n)
 

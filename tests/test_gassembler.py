@@ -25,6 +25,8 @@ def _rc(s):
 
 
 @pytest.fixture(scope="module")
+
+
 def katk_fixture(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("katk")
     rng = np.random.default_rng(77)
@@ -103,6 +105,8 @@ def run_ours(args):
     ["--coverage", "40", "--sex", "female", "--min_group_size", "2",
      "--min_p", "0.5"],
 ])
+
+
 def test_gassembler_byte_identical(katk_fixture, flags):
     tmp = katk_fixture
     args = ["--dbi", "db.idx", "--region_file", "regions.txt",
@@ -179,41 +183,6 @@ def test_sw_traceback_vs_reference_scores(rng):
         sw_traceback(score_b[0], sx_b[0], sy_b[0], m)
 
 
-def test_jax_sw_twin_matches_numpy(rng):
-    """The jitted wavefront SW must produce identical matrices to the
-    numpy twin (both integer-exact)."""
-    from genometester4_tpu.ops.swalign import (diag_to_matrix, make_sw_jax,
-                                               sw_matrices_batch)
-
-    n_cap, m_cap = 64, 48
-    run = make_sw_jax(n_cap, m_cap)
-    ref = rng.integers(0, 4, n_cap).astype(np.int8)
-    reads = rng.integers(0, 5, (8, m_cap)).astype(np.int8)  # incl. N
-    cells, sxs, sys_ = (np.asarray(x) for x in run(ref, reads))
-    score_j = diag_to_matrix(cells, n_cap, m_cap)
-    sx_j = diag_to_matrix(sxs, n_cap, m_cap)
-    sy_j = diag_to_matrix(sys_, n_cap, m_cap)
-    score_n, sx_n, sy_n = sw_matrices_batch(ref, reads)
-    np.testing.assert_array_equal(score_j, score_n)
-    np.testing.assert_array_equal(sx_j, sx_n)
-    np.testing.assert_array_equal(sy_j, sy_n)
-
-
-def test_pallas_sw_matches_numpy(rng):
-    """Pallas wavefront SW (interpret mode on CPU) must be integer-exact
-    vs the numpy twin."""
-    from genometester4_tpu.ops.swalign import sw_matrices_batch
-    from genometester4_tpu.ops.swalign_pallas import sw_pallas_matrices
-
-    ref = rng.integers(0, 4, 70).astype(np.int8)
-    reads = rng.integers(0, 5, (5, 40)).astype(np.int8)
-    s_p, sx_p, sy_p = sw_pallas_matrices(ref, reads, interpret=True)
-    s_n, sx_n, sy_n = sw_matrices_batch(ref, reads)
-    np.testing.assert_array_equal(s_p, s_n)
-    np.testing.assert_array_equal(sx_p, sx_n)
-    np.testing.assert_array_equal(sy_p, sy_n)
-
-
 def test_snvs_and_fp_files(katk_fixture):
     """--snvs marks known SNVs (excluded from group divergence), --fp
     forces NC at listed positions — byte-identical."""
@@ -241,6 +210,8 @@ def test_snvs_and_fp_files(katk_fixture):
 
 
 @pytest.mark.parametrize("mode", ["pos", "region"])
+
+
 def test_single_region_modes(katk_fixture, mode):
     """--pos CHR:POS and --region CHR START END SEQ single-region paths
     (print via the recursive assembler) — byte-identical."""
@@ -267,110 +238,9 @@ def test_single_region_modes(katk_fixture, mode):
     assert out == ref.stdout.decode()
 
 
-def test_sw_pallas_lanes_identical(rng):
-    """Lane-batched Pallas SW == numpy wavefront, per-lane refs, padded
-    lanes (B > 128), variable ref/read lengths, N codes included."""
-    import jax.numpy as jnp
-    from genometester4_tpu.ops.swalign import (sw_matrices_batch,
-                                               diag_to_matrix)
-    from genometester4_tpu.ops.swalign_pallas import make_sw_pallas_lanes
-
-    n_cap, m_cap = 41, 33
-    B = 140
-    refs = rng.integers(0, 5, size=(B, n_cap)).astype(np.int8)
-    reads = rng.integers(0, 5, size=(B, m_cap)).astype(np.int8)
-    nvec = rng.integers(5, n_cap + 1, size=B).astype(np.int32)
-    mlen = rng.integers(5, m_cap + 1, size=B)
-    for b in range(B):
-        reads[b, mlen[b]:] = 6
-        refs[b, nvec[b]:] = 6
-    run = make_sw_pallas_lanes(n_cap, m_cap, interpret=True)
-    sc_d, sx_d, sy_d = (np.asarray(x) for x in run(
-        jnp.asarray(refs), jnp.asarray(reads), jnp.asarray(nvec)))
-    for b in range(0, B, 17):
-        n = int(nvec[b])
-        sc_n, sx_n, sy_n = sw_matrices_batch(refs[b, :n], reads[b:b + 1])
-        assert (diag_to_matrix(sc_d[:, b:b + 1], n_cap, m_cap)[0]
-                [:n + 1, :m_cap + 1] == sc_n[0]).all()
-        assert (diag_to_matrix(sx_d[:, b:b + 1], n_cap, m_cap)[0]
-                [:n + 1, :m_cap + 1] == sx_n[0]).all()
-        assert (diag_to_matrix(sy_d[:, b:b + 1], n_cap, m_cap)[0]
-                [:n + 1, :m_cap + 1] == sy_n[0]).all()
-
-
-def test_sw_multi_region_equals_per_region(rng):
-    """sw_matrices_batch_device_multi (one launch for many regions,
-    round-5 VERDICT #5) is integer-identical to per-region launches,
-    with mixed reference/read lengths across regions."""
-    from genometester4_tpu.ops import swalign_pallas
-    from genometester4_tpu.ops.swalign_pallas import (
-        sw_matrices_batch_device, sw_matrices_batch_device_multi)
-
-    regions = []
-    for (n, b, m) in ((37, 5, 29), (18, 3, 33), (52, 9, 12)):
-        ref = rng.integers(0, 5, size=n).astype(np.int8)
-        reads = rng.integers(0, 5, size=(b, m)).astype(np.int8)
-        regions.append((ref, reads))
-    swalign_pallas._lanes_cached.cache_clear()
-    multi = sw_matrices_batch_device_multi(regions, interpret=True)
-    for (ref, reads), got in zip(regions, multi):
-        exp = sw_matrices_batch_device(ref, reads, interpret=True)
-        for g, e in zip(got, exp):
-            assert np.array_equal(g, e)
-    swalign_pallas._lanes_cached.cache_clear()
-
-
-def test_cross_region_sw_prefetch_batches_launches(katk_fixture,
-                                                   monkeypatch):
-    """The sequential device-SW loop must coalesce the pending regions
-    into fewer multi-region launches than regions (the launch-count
-    reduction of round-5 VERDICT #5), while staying byte-identical to
-    the reference (byte identity itself is pinned by
-    test_device_sw_path_identical — this test pins the batching)."""
-    import os
-    from genometester4_tpu.ops import swalign_pallas
-
-    orig_lanes = swalign_pallas.make_sw_pallas_lanes
-
-    def interp(n_cap, m_cap, interpret=False):
-        return orig_lanes(n_cap, m_cap, interpret=True)
-
-    monkeypatch.setattr(swalign_pallas, "make_sw_pallas_lanes", interp)
-    swalign_pallas._lanes_cached.cache_clear()
-
-    calls = {"multi": 0, "regions": 0}
-    orig_multi = swalign_pallas.sw_matrices_batch_device_multi
-
-    def counting_multi(inputs, interpret=False):
-        calls["multi"] += 1
-        calls["regions"] += len(inputs)
-        return orig_multi(inputs, interpret=interpret)
-
-    monkeypatch.setattr(swalign_pallas, "sw_matrices_batch_device_multi",
-                        counting_multi)
-    monkeypatch.setenv("GT4_TPU_DEVICE_SW", "1")
-
-    tmp = katk_fixture
-    args = ["--dbi", "db.idx", "--region_file", "regions.txt",
-            "--num_threads", "1", "--coverage", "40", "--sex", "female",
-            "--max_regions", "3"]
-    ref = run_reference(["gassembler"] + args, cwd=tmp, timeout=600)
-    assert ref.returncode == 0, ref.stderr
-    old = os.getcwd()
-    os.chdir(tmp)
-    try:
-        rc, out = run_ours(args)
-    finally:
-        os.chdir(old)
-        swalign_pallas._lanes_cached.cache_clear()
-    assert rc == 0
-    assert out == ref.stdout.decode()
-    assert calls["regions"] >= 2, "prefetch did not engage"
-    assert calls["multi"] < calls["regions"], \
-        "regions were not coalesced into fewer launches"
-
-
 @pytest.fixture(scope="module")
+
+
 def dense_katk_fixture(tmp_path_factory):
     """One chromosome, enough reads that every region exceeds the
     200-unique-read cap — exercises the rand() subsampling stream that
@@ -411,6 +281,8 @@ def dense_katk_fixture(tmp_path_factory):
 
 
 @pytest.mark.parametrize("threads", [2, 5])
+
+
 def test_parallel_regions_byte_identical(dense_katk_fixture, threads):
     """--num_threads N output == reference --num_threads 1 output, with
     every region consuming 200 rand() draws (subsampling active): the
@@ -445,39 +317,6 @@ def test_dense_fixture_triggers_subsampling(dense_katk_fixture):
                                     MAX_READS_PER_KMER) for ln in lines]
     assert any(c == MAX_READS_PER_REGION for c in cons), \
         "fixture must exercise the subsample stream"
-
-
-def test_device_sw_path_identical(katk_fixture, monkeypatch):
-    """GT4_TPU_DEVICE_SW=1 routes region alignment through the
-    lane-batched Pallas kernel; calls must stay byte-identical."""
-    import os
-    from genometester4_tpu.ops import swalign_pallas
-
-    # interpret mode on the CPU test backend
-    orig = swalign_pallas.make_sw_pallas_lanes
-
-    def interp(n_cap, m_cap, interpret=False):
-        return orig(n_cap, m_cap, interpret=True)
-
-    monkeypatch.setattr(swalign_pallas, "make_sw_pallas_lanes", interp)
-    swalign_pallas._lanes_cached.cache_clear()
-    monkeypatch.setenv("GT4_TPU_DEVICE_SW", "1")
-    tmp = katk_fixture
-    args = ["--dbi", "db.idx", "--region_file", "regions.txt",
-            "--num_threads", "1", "--coverage", "40", "--sex", "female",
-            "--max_regions", "3"]
-    ref = run_reference(["gassembler"] + args, cwd=tmp, timeout=600)
-    assert ref.returncode == 0, ref.stderr
-    old = os.getcwd()
-    os.chdir(tmp)
-    try:
-        rc, out = run_ours(args)
-    finally:
-        os.chdir(old)
-        swalign_pallas._lanes_cached.cache_clear()
-    assert rc == 0
-    assert out == ref.stdout.decode()
-
 
 def test_debug_level1_stderr_parity(katk_fixture):
     """-D level-1 stderr chrome is byte-identical: Loading reads

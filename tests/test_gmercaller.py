@@ -121,14 +121,14 @@ def test_counter_to_caller_pipeline(tmp_path, rng):
     (tmp_path / "ref.cnt").write_bytes(ref_cnt.stdout)
     rc, out = run_counter(["-db", str(db), str(fa)])
     assert rc == 0
-    (tmp_path / "tpu.cnt").write_text(out)
+    (tmp_path / "ours.cnt").write_text(out)
     assert out == ref_cnt.stdout.decode()
 
     ref_call = run_reference(["gmer_caller", "--runs", "0", "--coverage",
                               "10", str(tmp_path / "ref.cnt")], timeout=600)
     assert ref_call.returncode == 0, ref_call.stderr
     rc, call_out = run_ours(["--runs", "0", "--coverage", "10",
-                             str(tmp_path / "tpu.cnt")])
+                             str(tmp_path / "ours.cnt")])
     assert rc == 0
     assert call_out == ref_call.stdout.decode()
 

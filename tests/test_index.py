@@ -43,11 +43,11 @@ def test_index_byte_identical(index_pair, w):
     old = os.getcwd()
     os.chdir(tmp)
     try:
-        rc, _ = run_cli(main, inputs + ["-w", str(w), "-o", "tpu", "--index"])
+        rc, _ = run_cli(main, inputs + ["-w", str(w), "-o", "ours", "--index"])
     finally:
         os.chdir(old)
     assert rc == 0
-    assert (tmp / f"tpu_{w}.index").read_bytes() == (
+    assert (tmp / f"ours_{w}.index").read_bytes() == (
         tmp / f"ref_{w}.index").read_bytes()
 
 
@@ -61,11 +61,11 @@ def test_index_with_cutoff_byte_identical(index_pair):
     old = os.getcwd()
     os.chdir(tmp)
     try:
-        rc, _ = run_cli(main, args + ["-o", "tpu"])
+        rc, _ = run_cli(main, args + ["-o", "ours"])
     finally:
         os.chdir(old)
     assert rc == 0
-    assert (tmp / "tpu_8.index").read_bytes() == (
+    assert (tmp / "ours_8.index").read_bytes() == (
         tmp / "ref_8.index").read_bytes()
 
 
@@ -117,12 +117,12 @@ def test_glistcompare_index_inputs(index_pair):
     os.chdir(tmp)
     try:
         rc, _ = run_cli(main, ["r0_8.index", "r1_8.index", "-u", "-i", "-d",
-                               "-o", "tpuc"])
+                               "-o", "oursc"])
     finally:
         os.chdir(old)
     assert rc == 0
     for suffix in ("_8_union.list", "_8_intrsec.list", "_8_0_diff1.list"):
-        assert (tmp / f"tpuc{suffix}").read_bytes() == (
+        assert (tmp / f"oursc{suffix}").read_bytes() == (
             tmp / f"refc{suffix}").read_bytes(), suffix
 
 
@@ -188,14 +188,14 @@ def test_header_only_index_zero_words(tmp_path):
     os.chdir(tmp_path)
     try:
         rc, _ = run_cli(main, ["tiny.fq", "-w", "21", "--index", "-o",
-                               "tpu"])
+                               "ours"])
     finally:
         os.chdir(old)
     assert rc == 0
-    assert (tmp_path / "tpu_21.index").read_bytes() == (
+    assert (tmp_path / "ours_21.index").read_bytes() == (
         tmp_path / "ref_21.index").read_bytes()
     from genometester4_tpu.formats.index_format import read_index_map
-    im = read_index_map(tmp_path / "tpu_21.index")
+    im = read_index_map(tmp_path / "ours_21.index")
     assert len(im.words) == 0 and len(im.files) == 0
 
 

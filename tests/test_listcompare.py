@@ -25,8 +25,8 @@ def _mk_lists(tmp_path, rng, k=16, overlap=True):
 
 def _cmp_out(tmp_path, name):
     ref = (tmp_path / f"ref_{name}").read_bytes()
-    tpu = (tmp_path / f"tpu_{name}").read_bytes()
-    assert ref == tpu, f"{name}: outputs differ ({len(ref)} vs {len(tpu)} bytes)"
+    ours = (tmp_path / f"ours_{name}").read_bytes()
+    assert ref == ours, f"{name}: outputs differ ({len(ref)} vs {len(ours)} bytes)"
 
 
 FLAG_CASES = [
@@ -54,7 +54,7 @@ def test_pair_ops_byte_identical(tmp_path, rng, flags, outputs):
     r = run_reference(["glistcompare", str(l1), str(l2)] + flags +
                       ["-o", str(tmp_path / "ref")])
     assert r.returncode == 0, r.stderr
-    assert cli.main([str(l1), str(l2)] + flags + ["-o", str(tmp_path / "tpu")]) == 0
+    assert cli.main([str(l1), str(l2)] + flags + ["-o", str(tmp_path / "ours")]) == 0
     for name in outputs:
         _cmp_out(tmp_path, name)
 
@@ -65,7 +65,7 @@ def test_count_only_stdout(tmp_path, rng, capsys):
                        "--count_only", "-o", str(tmp_path / "ref")])
     assert r.returncode == 0
     assert cli.main([str(l1), str(l2), "-u", "-i", "--count_only",
-                     "-o", str(tmp_path / "tpu")]) == 0
+                     "-o", str(tmp_path / "ours")]) == 0
     assert capsys.readouterr().out == r.stdout.decode()
 
 
@@ -87,7 +87,7 @@ def test_multi_union_intersection(tmp_path, rng):
                            (["-u", "-c", "3"], ["16_union.list"])]:
         r = run_reference(["glistcompare"] + ls + flags + ["-o", str(tmp_path / "ref")])
         assert r.returncode == 0, r.stderr
-        assert cli.main(ls + flags + ["-o", str(tmp_path / "tpu")]) == 0
+        assert cli.main(ls + flags + ["-o", str(tmp_path / "ours")]) == 0
         for name in outputs:
             _cmp_out(tmp_path, name)
 
@@ -99,7 +99,7 @@ def test_subset_exact_drand48_parity(tmp_path, rng, method):
                        "--seed", "42", "-o", str(tmp_path / "ref")])
     assert r.returncode == 0, r.stderr
     assert cli.main([str(l1), "-ss", method, "500", "--seed", "42",
-                     "-o", str(tmp_path / "tpu")]) == 0
+                     "-o", str(tmp_path / "ours")]) == 0
     _cmp_out(tmp_path, "subset_16.list")
 
 
@@ -110,7 +110,7 @@ def test_mismatch_difference(tmp_path, rng, nmm):
                        "-o", str(tmp_path / "ref")])
     assert r.returncode == 0, r.stderr
     assert cli.main([str(l1), str(l2), "-d", "-mm", str(nmm),
-                     "-o", str(tmp_path / "tpu")]) == 0
+                     "-o", str(tmp_path / "ours")]) == 0
     _cmp_out(tmp_path, f"12_{nmm}_diff1.list")
 
 
@@ -120,7 +120,7 @@ def test_mismatch_ddiff(tmp_path, rng):
                        "-o", str(tmp_path / "ref")])
     assert r.returncode == 0, r.stderr
     assert cli.main([str(l1), str(l2), "-dd", "-mm", "1",
-                     "-o", str(tmp_path / "tpu")]) == 0
+                     "-o", str(tmp_path / "ours")]) == 0
     _cmp_out(tmp_path, "12_1_diff1.list")
     _cmp_out(tmp_path, "12_1_diff2.list")
 

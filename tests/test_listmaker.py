@@ -37,16 +37,16 @@ def _run_both(tmp_path, fasta_text, k, cutoff=1, n_files=1, texts=None,
         kwargs["chunk_bases"] = chunk_bases
     # CLI semantics: the reference IGNORES -c for .list output
     # (gt4_write_union hardcoded cutoff, src/glistmaker.c:333)
-    make_list(paths, k, str(tmp_path / f"tpu_{k}.list"), **kwargs)
-    return ref_file, tmp_path / f"tpu_{k}.list"
+    make_list(paths, k, str(tmp_path / f"ours_{k}.list"), **kwargs)
+    return ref_file, tmp_path / f"ours_{k}.list"
 
 
-def _assert_identical(ref_file, tpu_file):
+def _assert_identical(ref_file, ours_file):
     ref_bytes = ref_file.read_bytes()
-    tpu_bytes = tpu_file.read_bytes()
-    if ref_bytes != tpu_bytes:
+    ours_bytes = ours_file.read_bytes()
+    if ref_bytes != ours_bytes:
         h1, w1, c1 = read_list(ref_file)
-        h2, w2, c2 = read_list(tpu_file)
+        h2, w2, c2 = read_list(ours_file)
         assert h1.n_words == h2.n_words, (h1, h2)
         np.testing.assert_array_equal(np.asarray(w1), np.asarray(w2))
         np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
@@ -56,24 +56,24 @@ def _assert_identical(ref_file, tpu_file):
 @pytest.mark.parametrize("k", [4, 11, 16, 17, 25, 32])
 def test_byte_identical_small_fasta(tmp_path, rng, k):
     text = random_fasta(rng, n_records=5, min_len=200, max_len=2000, n_prob=0.01)
-    ref_file, tpu_file = _run_both(tmp_path, text, k)
-    _assert_identical(ref_file, tpu_file)
+    ref_file, ours_file = _run_both(tmp_path, text, k)
+    _assert_identical(ref_file, ours_file)
 
 
 def test_byte_identical_with_cutoff(tmp_path, rng):
     """-c is parsed but IGNORED by the reference's .list path (fuzz
     finding): inputs full of count-1 words must survive -c 3."""
     text = random_fasta(rng, n_records=3, min_len=400, max_len=900)
-    ref_file, tpu_file = _run_both(tmp_path, text, 16, cutoff=3)
+    ref_file, ours_file = _run_both(tmp_path, text, 16, cutoff=3)
     h, w, c = read_list(ref_file)
     assert (np.asarray(c) == 1).any()  # cutoff visibly not applied
-    _assert_identical(ref_file, tpu_file)
+    _assert_identical(ref_file, ours_file)
 
 
 def test_byte_identical_multi_file(tmp_path, rng):
     texts = [random_fasta(rng, 3, 500, 1500) for _ in range(3)]
-    ref_file, tpu_file = _run_both(tmp_path, None, 16, texts=texts)
-    _assert_identical(ref_file, tpu_file)
+    ref_file, ours_file = _run_both(tmp_path, None, 16, texts=texts)
+    _assert_identical(ref_file, ours_file)
 
 
 def test_byte_identical_fastq(tmp_path, rng):
@@ -82,15 +82,15 @@ def test_byte_identical_fastq(tmp_path, rng):
     p.write_text(text)
     r = run_reference(["glistmaker", str(p), "-w", "25", "-o", str(tmp_path / "ref")])
     assert r.returncode == 0, r.stderr
-    make_list([str(p)], 25, str(tmp_path / "tpu_25.list"))
-    _assert_identical(tmp_path / "ref_25.list", tmp_path / "tpu_25.list")
+    make_list([str(p)], 25, str(tmp_path / "ours_25.list"))
+    _assert_identical(tmp_path / "ref_25.list", tmp_path / "ours_25.list")
 
 
 def test_chunked_matches_unchunked(tmp_path, rng):
     """Multiple device chunks must merge to the same result as one."""
     text = random_fasta(rng, n_records=4, min_len=3000, max_len=8000)
-    ref_file, tpu_file = _run_both(tmp_path, text, 16, chunk_bases=4096)
-    _assert_identical(ref_file, tpu_file)
+    ref_file, ours_file = _run_both(tmp_path, text, 16, chunk_bases=4096)
+    _assert_identical(ref_file, ours_file)
 
 
 def test_cli_entry(tmp_path, rng, monkeypatch):
@@ -113,8 +113,8 @@ def test_gz_input(tmp_path, rng):
     plain.write_text(text)
     r = run_reference(["glistmaker", str(p), "-w", "14", "-o", str(tmp_path / "ref")])
     assert r.returncode == 0, r.stderr
-    make_list([str(p)], 14, str(tmp_path / "tpu_14.list"))
-    _assert_identical(tmp_path / "ref_14.list", tmp_path / "tpu_14.list")
+    make_list([str(p)], 14, str(tmp_path / "ours_14.list"))
+    _assert_identical(tmp_path / "ref_14.list", tmp_path / "ours_14.list")
 
 
 def test_spill_to_disk_byte_identical(tmp_path, rng):
@@ -185,8 +185,8 @@ def test_streaming_byte_identical_vs_reference(tmp_path, rng, slab_bytes):
     r = run_reference(["glistmaker", str(p), "-w", str(k),
                        "-o", str(tmp_path / "ref")])
     assert r.returncode == 0, r.stderr
-    make_list([str(p)], k, str(tmp_path / "tpu.list"), slab_bytes=slab_bytes)
-    assert (tmp_path / "tpu.list").read_bytes() == (
+    make_list([str(p)], k, str(tmp_path / "ours.list"), slab_bytes=slab_bytes)
+    assert (tmp_path / "ours.list").read_bytes() == (
         tmp_path / f"ref_{k}.list").read_bytes()
 
 
@@ -218,8 +218,8 @@ def test_streaming_single_line_fasta(tmp_path, rng):
     r = run_reference(["glistmaker", str(p), "-w", str(k),
                        "-o", str(tmp_path / "ref")])
     assert r.returncode == 0, r.stderr
-    make_list([str(p)], k, str(tmp_path / "tpu.list"), slab_bytes=777)
-    assert (tmp_path / "tpu.list").read_bytes() == (
+    make_list([str(p)], k, str(tmp_path / "ours.list"), slab_bytes=777)
+    assert (tmp_path / "ours.list").read_bytes() == (
         tmp_path / f"ref_{k}.list").read_bytes()
 
 

@@ -1,9 +1,9 @@
 """Multi-process (multi-host) paths: real jax.distributed groups.
 
 The reference is single-node only (SURVEY.md §2c); the multi-host path
-(parallel/multihost.py) is the DCN half of the TPU replacement design.
+(parallel/multihost.py) is the cross-host half of the mesh design.
 These tests spawn REAL process groups (Gloo collectives over loopback
-stand in for DCN) through the production CLI entry points and
+stand in for the host network) through the production CLI entry points and
 byte-compare the distributed output against the reference binary.
 """
 
@@ -148,7 +148,7 @@ def test_multihost_gmer_counter_stdout_identical(tmp_path, rng):
                       ["-db", str(db), str(fa)], tmp_path)
 
     def degloo(b):
-        # the Gloo transport (loopback stand-in for DCN) banners on
+        # the Gloo transport (loopback stand-in for the host network) banners on
         # stdout; that noise is the test harness's, not the tool's
         return b"".join(ln for ln in b.splitlines(keepends=True)
                         if not ln.startswith(b"[Gloo]"))

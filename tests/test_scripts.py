@@ -240,9 +240,9 @@ def test_make_union_intersection_tree(tmp_path, rng):
         pytest.skip("reference not built")
     B = "ACGT"
     ref_dir = tmp_path / "mu_ref"
-    tpu_dir = tmp_path / "mu_tpu"
+    ours_dir = tmp_path / "mu_ours"
     ref_dir.mkdir()
-    tpu_dir.mkdir()
+    ours_dir.mkdir()
     names = []
     for i in range(5):
         seq = "".join(B[j] for j in rng.integers(0, 4, 800))
@@ -251,7 +251,7 @@ def test_make_union_intersection_tree(tmp_path, rng):
         r = run_reference(["glistmaker", str(fa), "-w", "10", "-o",
                            str(ref_dir / f"l{i}")])
         assert r.returncode == 0
-        shutil.copy(ref_dir / f"l{i}_10.list", tpu_dir / f"l{i}_10.list")
+        shutil.copy(ref_dir / f"l{i}_10.list", ours_dir / f"l{i}_10.list")
         names.append(f"l{i}_10.list")
     if perl:
         shutil.copy(REF_BIN / "glistcompare", ref_dir / "glistcompare")
@@ -259,13 +259,13 @@ def test_make_union_intersection_tree(tmp_path, rng):
                        cwd=ref_dir, capture_output=True)
     from genometester4_tpu.cli.make_union import main_union
     old = os.getcwd()
-    os.chdir(tpu_dir)
+    os.chdir(ours_dir)
     try:
         rc, _ = run_cli(main_union, names, capture="stderr")
     finally:
         os.chdir(old)
     assert rc == 0
-    assert (tpu_dir / "union_10_union.list").exists()
+    assert (ours_dir / "union_10_union.list").exists()
     if perl and (ref_dir / "union_10_union.list").exists():
-        assert (tpu_dir / "union_10_union.list").read_bytes() == (
+        assert (ours_dir / "union_10_union.list").read_bytes() == (
             ref_dir / "union_10_union.list").read_bytes()

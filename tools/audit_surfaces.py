@@ -1,5 +1,5 @@
 """Tool-vs-tool scale audit: every CLI surface, interleaved timed runs,
-byte-compared outputs. Reproduces the BASELINE.md measured table on the
+byte-compared outputs. Reproduces the tool-vs-tool measured table on the
 current container (wall times shift per container — re-measure before
 quoting ratios, CLAUDE.md).
 
@@ -231,8 +231,7 @@ def main():
     print("audit complete")
     print("NOTE: sub-1x rows with ref < ~0.7s are the CPython launcher "
           "floor (~0.06-0.2s)\nagainst near-zero reference jobs; they "
-          "amortize at production sizes (BASELINE.md\nrecords the "
-          "at-scale ratios).")
+          "amortize at production sizes.")
 
 
 if __name__ == "__main__":
